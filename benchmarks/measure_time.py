@@ -1,15 +1,16 @@
 """Benchmark harness: forward/backward wall-clock for silhouette and
 textured rendering over a sweep of azimuths.
 
-TPU-native replacement for the reference's stale chainer-era harness
+Replacement for the reference's stale chainer-era harness
 (misc/measure_time.py:96-106): jit-compiled steps, ``block_until_ready``
 device sync (instead of ``.get()``), optional ``jax.profiler`` trace, and
-an enqueue-N/block-once protocol that separates device throughput from
-host dispatch latency (important through remote-tunneled devices).
+an enqueue-N/block-once protocol that measures device throughput rather
+than per-call host dispatch latency.  Without ``--obj`` the mesh is the
+generated 2,464-face torus knot.
 
 Usage:
   python benchmarks/measure_time.py [--image-size 256] [--batch 1]
-      [--iters 24] [--backend auto|xla|pallas] [--profile DIR]
+      [--iters 24] [--backend auto|xla|triton] [--profile DIR]
 """
 
 from __future__ import annotations
@@ -24,17 +25,16 @@ import sys as _sys
 
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
 
-DEFAULT_OBJ = "/root/reference/tests_torch/data/teapot.obj"
-
 
 def parse_args():
     p = argparse.ArgumentParser()
-    p.add_argument("--obj", default=DEFAULT_OBJ)
+    p.add_argument("--obj", default=None,
+                   help="an .obj mesh (default: the generated torus knot)")
     p.add_argument("--image-size", type=int, default=256)
     p.add_argument("--texture-size", type=int, default=2)
     p.add_argument("--batch", type=int, default=1)
     p.add_argument("--iters", type=int, default=24, help="azimuth steps (reference: 24)")
-    p.add_argument("--backend", default="auto", choices=["auto", "xla", "pallas"])
+    p.add_argument("--backend", default="auto", choices=["auto", "xla", "triton"])
     p.add_argument("--profile", default=None, help="write a jax.profiler trace here")
     return p.parse_args()
 
@@ -57,9 +57,9 @@ def run():
     import jax
     import jax.numpy as jnp
 
-    import neural_renderer_v2_pytorch_tpu as nr
-    from neural_renderer_v2_pytorch_tpu.ops.camera import look_at, perspective
-    from neural_renderer_v2_pytorch_tpu.ops.rasterize import (
+    import neural_renderer_v2_jax as nr
+    from neural_renderer_v2_jax.ops.camera import look_at, perspective
+    from neural_renderer_v2_jax.ops.rasterize import (
         RasterizeHyperparam,
         RasterizeParam,
         rasterize_rgb,
@@ -69,7 +69,12 @@ def run():
     args = parse_args()
     print("platform:", jax.default_backend(), jax.devices())
 
-    vertices, faces = nr.load_obj(args.obj)
+    if args.obj:
+        vertices, faces = nr.load_obj(args.obj)
+    else:
+        from neural_renderer_v2_jax.utils.scenes import torus_knot
+
+        vertices, faces = torus_knot()
     vt, ft, tex = nr.create_textures(faces.shape[0], texture_size=args.texture_size)
     bs = args.batch
     vertices = jnp.asarray(np.tile(vertices[None], (bs, 1, 1)))

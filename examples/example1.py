@@ -1,9 +1,10 @@
-"""Example 1: drawing a teapot from multiple viewpoints.
+"""Example 1: drawing a mesh from multiple viewpoints.
 
-TPU-native rework of examples_pytorch/example1.py: instead of re-tracing
-per camera, all 90 azimuths render as ONE batched jit call (the camera is
-a [90, 3] array swept through look_at/perspective under vmap-style
-batching) -- the idiomatic JAX/TPU shape for a multi-view sweep.
+Rework of examples_pytorch/example1.py: instead of re-tracing per camera,
+all 90 azimuths render as ONE batched jit call (the camera is a [90, 3]
+array swept through look_at/perspective) -- the idiomatic JAX shape for a
+multi-view sweep.  Without ``-i`` the mesh is the generated torus knot
+(utils/scenes.py).
 """
 
 import argparse
@@ -11,7 +12,7 @@ import os
 
 import numpy as np
 
-import neural_renderer_v2_pytorch_tpu as nr
+import neural_renderer_v2_jax as nr
 
 CAMERA_DISTANCE = 2.732
 ELEVATION = 30
@@ -20,8 +21,8 @@ ELEVATION = 30
 def parse_arguments():
     parser = argparse.ArgumentParser()
     parser.add_argument(
-        "-i", "--input_file", type=str,
-        default="/root/reference/examples_pytorch/data/teapot.obj",
+        "-i", "--input_file", type=str, default=None,
+        help="an .obj mesh (default: the generated torus knot)",
     )
     parser.add_argument("-o", "--output_file", type=str, default="./data/example1.gif")
     parser.add_argument("-b", "--batch", type=int, default=30, help="cameras per call")
@@ -41,10 +42,14 @@ def run():
     working_dir = os.path.dirname(args.output_file) or "."
     os.makedirs(working_dir, exist_ok=True)
 
-    if not args.input_file.endswith(".obj"):
-        raise RuntimeError("Only .obj files are currently supported as input.")
+    if args.input_file is None:
+        from neural_renderer_v2_jax.utils.scenes import torus_knot
 
-    vertices, faces = nr.load_obj(args.input_file)
+        vertices, faces = torus_knot()
+    elif not args.input_file.endswith(".obj"):
+        raise RuntimeError("Only .obj files are currently supported as input.")
+    else:
+        vertices, faces = nr.load_obj(args.input_file)
     renderer = nr.Renderer()
     renderer.image_size = args.image_size
 

@@ -1,8 +1,10 @@
 """Example 2: optimizing mesh vertices to match a reference silhouette.
 
-TPU-native rework of examples_pytorch/example2.py: the model is a pure
-loss function over a vertex pytree; one jitted optax train step replaces
-the torch module/optimizer pair.
+Rework of examples_pytorch/example2.py: the model is a pure loss function
+over a vertex pytree; one jitted optax train step replaces the torch
+module/optimizer pair.  Without ``-io``/``-ir`` the mesh is the generated
+torus knot and the reference silhouette is that knot grown by 15%,
+rendered from the same camera.
 """
 
 import argparse
@@ -10,7 +12,7 @@ import os
 
 import numpy as np
 
-import neural_renderer_v2_pytorch_tpu as nr
+import neural_renderer_v2_jax as nr
 
 CAMERA_DISTANCE = 2.732
 ELEVATION = 0
@@ -19,14 +21,10 @@ AZIMUTH = 90
 
 def parse_arguments():
     parser = argparse.ArgumentParser()
-    parser.add_argument(
-        "-io", "--input_obj_file", type=str,
-        default="/root/reference/examples_pytorch/data/teapot.obj",
-    )
-    parser.add_argument(
-        "-ir", "--input_ref_file", type=str,
-        default="/root/reference/examples_pytorch/data/example2_ref.png",
-    )
+    parser.add_argument("-io", "--input_obj_file", type=str, default=None,
+                        help="an .obj mesh (default: the generated torus knot)")
+    parser.add_argument("-ir", "--input_ref_file", type=str, default=None,
+                        help="reference silhouette image (default: generated)")
     parser.add_argument("-oo", "--output_opt_file", type=str, default="./data/example2_opt.gif")
     parser.add_argument("-or", "--output_res_file", type=str, default="./data/example2_res.gif")
     parser.add_argument("-n", "--num_steps", type=int, default=300)
@@ -47,13 +45,14 @@ def run():
     working_dir = os.path.dirname(args.output_res_file) or "."
     os.makedirs(working_dir, exist_ok=True)
 
-    vertices, faces = nr.load_obj(args.input_obj_file)
+    if args.input_obj_file:
+        vertices, faces = nr.load_obj(args.input_obj_file)
+    else:
+        from neural_renderer_v2_jax.utils.scenes import torus_knot
+
+        vertices, faces = torus_knot()
     vertices = jnp.asarray(vertices)
     faces = jnp.asarray(faces)
-    image_ref = nr.imread(args.input_ref_file).mean(-1)
-    k = image_ref.shape[0] // args.image_size
-    assert k * args.image_size == image_ref.shape[0], args.image_size
-    image_ref = jnp.asarray(image_ref[::k, ::k])
 
     renderer = nr.Renderer()
     renderer.image_size = args.image_size
@@ -64,6 +63,14 @@ def run():
     def render_silhouette(vertices, viewpoint):
         renderer.viewpoints = viewpoint
         return renderer.render_silhouettes(vertices[None], faces)[0]
+
+    if args.input_ref_file:
+        image_ref = nr.imread(args.input_ref_file).mean(-1)
+        k = image_ref.shape[0] // args.image_size
+        assert k * args.image_size == image_ref.shape[0], args.image_size
+        image_ref = jnp.asarray(image_ref[::k, ::k])
+    else:
+        image_ref = render_silhouette(vertices * 1.15, eye)
 
     def loss_fn(vertices):
         image = render_silhouette(vertices, eye)

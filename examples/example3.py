@@ -1,9 +1,11 @@
 """Example 3: optimizing a texture atlas under random viewpoints.
 
-TPU-native rework of examples_pytorch/example3.py: tanh-parameterized
-texture atlas, orthographic camera (renderer.perspective = False), random
-azimuth per step via jax.random (threaded PRNG key instead of np.random
-inside the step, so the whole step jits).
+Rework of examples_pytorch/example3.py: tanh-parameterized texture
+atlas, orthographic camera (renderer.perspective = False), random azimuth
+per step via jax.random (threaded PRNG key instead of np.random inside
+the step, so the whole step jits).  Without ``-io``/``-ir`` the mesh is the
+generated torus knot and the reference image is the knot under a seeded
+random texture, seen from azimuth 0.
 """
 
 import argparse
@@ -11,7 +13,7 @@ import os
 
 import numpy as np
 
-import neural_renderer_v2_pytorch_tpu as nr
+import neural_renderer_v2_jax as nr
 
 CAMERA_DISTANCE = 2.732
 ELEVATION = 0
@@ -19,14 +21,10 @@ ELEVATION = 0
 
 def parse_arguments():
     parser = argparse.ArgumentParser()
-    parser.add_argument(
-        "-io", "--input_obj_file", type=str,
-        default="/root/reference/examples_pytorch/data/teapot.obj",
-    )
-    parser.add_argument(
-        "-ir", "--input_ref_file", type=str,
-        default="/root/reference/examples_pytorch/data/example3_ref.png",
-    )
+    parser.add_argument("-io", "--input_obj_file", type=str, default=None,
+                        help="an .obj mesh (default: the generated torus knot)")
+    parser.add_argument("-ir", "--input_ref_file", type=str, default=None,
+                        help="reference RGB image (default: generated)")
     parser.add_argument("-or", "--output_res_file", type=str, default="./data/example3_res.gif")
     parser.add_argument("-n", "--num_steps", type=int, default=300)
     parser.add_argument("-s", "--image_size", type=int, default=256,
@@ -46,18 +44,18 @@ def run():
     working_dir = os.path.dirname(args.output_res_file) or "."
     os.makedirs(working_dir, exist_ok=True)
 
-    vertices, faces = nr.load_obj(args.input_obj_file)
+    if args.input_obj_file:
+        vertices, faces = nr.load_obj(args.input_obj_file)
+    else:
+        from neural_renderer_v2_jax.utils.scenes import torus_knot
+
+        vertices, faces = torus_knot()
     vertices = jnp.asarray(vertices[None])
     faces = jnp.asarray(faces)
     vertices_t, faces_t, textures = nr.create_textures(faces.shape[0], texture_size=4)
     vertices_t = jnp.asarray(vertices_t[None])
     faces_t = jnp.asarray(faces_t)
     texture_param = jnp.asarray(textures[None])  # trainable, squashed by tanh
-
-    image_ref = nr.imread(args.input_ref_file)[..., :3]
-    k = image_ref.shape[0] // args.image_size
-    assert k * args.image_size == image_ref.shape[0], args.image_size
-    image_ref = jnp.asarray(image_ref[::k, ::k])
 
     renderer = nr.Renderer()
     renderer.image_size = args.image_size
@@ -69,6 +67,18 @@ def run():
         return renderer.render_rgb(
             vertices, faces, vertices_t, faces_t, jnp.tanh(texture_param)
         )
+
+    if args.input_ref_file:
+        image_ref = nr.imread(args.input_ref_file)[..., :3]
+        k = image_ref.shape[0] // args.image_size
+        assert k * args.image_size == image_ref.shape[0], args.image_size
+        image_ref = jnp.asarray(image_ref[::k, ::k])
+    else:
+        rng = np.random.RandomState(0)
+        target = jnp.asarray(rng.uniform(-1, 1, texture_param.shape).astype("float32"))
+        vp = jnp.asarray(np.array(
+            nr.get_points_from_angles(CAMERA_DISTANCE, 0.0, 0.0), "float32"))
+        image_ref = render_rgb(target, vp)[0].transpose(1, 2, 0)
 
     def loss_fn(texture_param, viewpoint):
         images = render_rgb(texture_param, viewpoint)

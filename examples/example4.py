@@ -1,9 +1,12 @@
 """Example 4: finding camera parameters by gradient descent.
 
-TPU-native rework of examples_pytorch/example4.py: the trainable is the
-3-vector camera position itself; gradients flow image -> NMR backward ->
+Rework of examples_pytorch/example4.py: the trainable is the 3-vector
+camera position itself; gradients flow image -> NMR backward ->
 coordinate_map -> vertices-in-camera-space -> look_at -> camera position.
-Stops when the loss drops below 70 (example4.py:121).
+Stops when the loss drops below 70 (example4.py:121).  Without
+``-io``/``-ir`` the mesh is the generated torus knot and the reference
+silhouette is rendered from a camera at distance 2.732, elevation 30,
+azimuth 60.
 """
 
 import argparse
@@ -11,19 +14,15 @@ import os
 
 import numpy as np
 
-import neural_renderer_v2_pytorch_tpu as nr
+import neural_renderer_v2_jax as nr
 
 
 def parse_arguments():
     parser = argparse.ArgumentParser()
-    parser.add_argument(
-        "-io", "--input_obj_file", type=str,
-        default="/root/reference/examples_pytorch/data/teapot.obj",
-    )
-    parser.add_argument(
-        "-ir", "--input_ref_file", type=str,
-        default="/root/reference/examples_pytorch/data/example4_ref.png",
-    )
+    parser.add_argument("-io", "--input_obj_file", type=str, default=None,
+                        help="an .obj mesh (default: the generated torus knot)")
+    parser.add_argument("-ir", "--input_ref_file", type=str, default=None,
+                        help="reference silhouette image (default: generated)")
     parser.add_argument("-or", "--output_res_file", type=str, default="./data/example4_res.gif")
     parser.add_argument("-n", "--max_steps", type=int, default=1000)
     parser.add_argument("-s", "--image_size", type=int, default=256,
@@ -41,15 +40,14 @@ def run():
     working_dir = os.path.dirname(args.output_res_file) or "."
     os.makedirs(working_dir, exist_ok=True)
 
-    vertices, faces = nr.load_obj(args.input_obj_file)
+    if args.input_obj_file:
+        vertices, faces = nr.load_obj(args.input_obj_file)
+    else:
+        from neural_renderer_v2_jax.utils.scenes import torus_knot
+
+        vertices, faces = torus_knot()
     vertices = jnp.asarray(vertices[None])
     faces = jnp.asarray(faces)
-    image_ref = nr.imread(args.input_ref_file)
-    if image_ref.ndim == 3:
-        image_ref = image_ref.mean(-1)
-    k = image_ref.shape[0] // args.image_size
-    assert k * args.image_size == image_ref.shape[0], args.image_size
-    image_ref = jnp.asarray(image_ref[::k, ::k])
     # the reference's loss<70 stop (example4.py:121) is an L2 SUM at 256^2
     stop_loss = 70.0 * (args.image_size / 256.0) ** 2
 
@@ -60,6 +58,17 @@ def run():
     def render_from(camera_position):
         renderer.viewpoints = camera_position  # differentiable alias
         return renderer.render_silhouettes(vertices, faces)[0]
+
+    if args.input_ref_file:
+        image_ref = nr.imread(args.input_ref_file)
+        if image_ref.ndim == 3:
+            image_ref = image_ref.mean(-1)
+        k = image_ref.shape[0] // args.image_size
+        assert k * args.image_size == image_ref.shape[0], args.image_size
+        image_ref = jnp.asarray(image_ref[::k, ::k])
+    else:
+        image_ref = render_from(jnp.asarray(
+            np.array(nr.get_points_from_angles(2.732, 30, 60), "float32")))
 
     def loss_fn(camera_position):
         image = render_from(camera_position)

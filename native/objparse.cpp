@@ -1,9 +1,9 @@
 // Fast Wavefront OBJ parser (C++17, no deps).
 //
-// Native component of neural_renderer_v2_pytorch_tpu: the reference keeps
-// its native layer on the device side (CUDA kernels); on TPU the device
-// side is Pallas, so the native layer moves to where it still pays off --
-// host-side asset ingestion.  The pure-Python loader tokenizes line by
+// Native component of neural_renderer_v2_jax: the reference keeps
+// its native layer on the device side (CUDA kernels); here the device
+// side is XLA plus one Pallas kernel, so the native layer moves to where
+// it still pays off -- host-side asset ingestion.  The pure-Python loader tokenizes line by
 // line (~30 MB/s); this parser does a single zero-copy pass (~600 MB/s),
 // which matters for the 100K-face production meshes in the scaling
 // target.

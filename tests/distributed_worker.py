@@ -4,14 +4,14 @@ Run as: python distributed_worker.py <process_id> <num_processes> <port>
 
 Each process owns 2 virtual CPU devices; the workers bring up the
 multi-process runtime through ``parallel.distributed.initialize`` (the
-production entry point, BASELINE.json config 5), build a global
+multi-process entry point), build a global
 (data, tile) mesh spanning both processes, render a sharded silhouette,
 and check the cross-process result against a locally computed oracle.
 
 Then :func:`full_train_step_parity` runs the FULL textured fwd+bwd train
-step (teapot, AA on) with replicated trainable vertices/textures on (a)
+step (generated torus knot, AA on) with replicated trainable vertices/textures on (a)
 the (data, tile) mesh, whose data axis spans the processes -- the
-parameter-gradient psums ride the gloo (DCN stand-in) link -- and (b) a
+parameter-gradient psums ride the gloo link -- and (b) a
 deliberately permuted mesh whose FACE axis crosses the processes, so the
 ordered z-combine's all_gather does too; image, loss, and vertex/texture
 gradients are asserted against the single-device oracle in every case.
@@ -28,10 +28,10 @@ def main():
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    # cross-process CPU collectives (TPU pods use ICI natively)
+    # cross-process CPU collectives
     jax.config.update("jax_cpu_collectives_implementation", "gloo")
 
-    from neural_renderer_v2_pytorch_tpu.parallel import distributed
+    from neural_renderer_v2_jax.parallel import distributed
 
     assert distributed.initialize(
         coordinator_address="localhost:%d" % port,
@@ -46,12 +46,12 @@ def main():
     import numpy as np
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    import neural_renderer_v2_pytorch_tpu as nr
-    from neural_renderer_v2_pytorch_tpu.ops.rasterize import (
+    import neural_renderer_v2_jax as nr
+    from neural_renderer_v2_jax.ops.rasterize import (
         RasterizeHyperparam,
         rasterize_silhouettes,
     )
-    from neural_renderer_v2_pytorch_tpu.parallel import rasterize_silhouettes_sharded
+    from neural_renderer_v2_jax.parallel import rasterize_silhouettes_sharded
 
     mesh = distributed.global_mesh(data=2)  # tile = n_global // 2
     assert mesh.shape["data"] == 2 and mesh.shape["tile"] == n_global // 2
@@ -125,27 +125,24 @@ def full_train_step_parity(mesh):
     import numpy as np
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    import neural_renderer_v2_pytorch_tpu as nr
-    from neural_renderer_v2_pytorch_tpu.ops.camera import look_at, perspective
-    from neural_renderer_v2_pytorch_tpu.ops.rasterize import (
+    import neural_renderer_v2_jax as nr
+    from neural_renderer_v2_jax.ops.camera import look_at, perspective
+    from neural_renderer_v2_jax.ops.rasterize import (
         RasterizeHyperparam,
         RasterizeParam,
         rasterize_rgba,
     )
-    from neural_renderer_v2_pytorch_tpu.parallel import rasterize_rgba_sharded
-    from neural_renderer_v2_pytorch_tpu.parallel.mesh import make_mesh
-
-    ref_obj = "/root/reference/examples_pytorch/data/teapot.obj"
-    if not os.path.exists(ref_obj):
-        print("teapot unavailable; skipping train-step parity", flush=True)
-        return
+    from neural_renderer_v2_jax.parallel import rasterize_rgba_sharded
+    from neural_renderer_v2_jax.parallel.mesh import make_mesh
 
     # the grad psums must actually cross processes: 'data' (the axis the
     # replicated-parameter psums run over) spans both on this mesh
     md = mesh.devices
     assert md[0, 0].process_index != md[1, 0].process_index, md
 
-    verts_np, faces_np = nr.load_obj(ref_obj)
+    from neural_renderer_v2_jax.utils.scenes import torus_knot
+
+    verts_np, faces_np = torus_knot(seed=0)
     nf = faces_np.shape[0]
     vt, ft, tex = nr.create_textures(nf, texture_size=2)
     bs = 2

@@ -6,7 +6,7 @@ Analytic values from the reference suites:
 
 import numpy as np
 
-import neural_renderer_v2_pytorch_tpu as nr
+import neural_renderer_v2_jax as nr
 
 
 def test_look_at_analytic():

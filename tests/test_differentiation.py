@@ -11,7 +11,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import neural_renderer_v2_pytorch_tpu as nr
+import neural_renderer_v2_jax as nr
 
 
 def test_differentiation_backward_matches_finite_shift():
@@ -87,7 +87,7 @@ def test_differentiation_forward_is_identity():
 
 
 def test_maximum_rule():
-    from neural_renderer_v2_pytorch_tpu.ops.differentiation import maximum
+    from neural_renderer_v2_jax.ops.differentiation import maximum
 
     r = jnp.asarray(np.array([-1.0, 2.0, 1.0, 0.5, 0.50004], "float32"))
     l = jnp.asarray(np.array([-2.0, 1.0, 3.0, 0.5, 0.5], "float32"))

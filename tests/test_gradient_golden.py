@@ -15,8 +15,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import neural_renderer_v2_pytorch_tpu as nr
-from neural_renderer_v2_pytorch_tpu.ops.rasterize import (
+import neural_renderer_v2_jax as nr
+from neural_renderer_v2_jax.ops.rasterize import (
     RasterizeHyperparam,
     rasterize_silhouettes,
 )

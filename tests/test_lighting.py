@@ -9,13 +9,13 @@ rgb = tex * (ambient + relu(d_z)*dir_color + specular_color * 1^alpha).
 import jax.numpy as jnp
 import numpy as np
 
-import neural_renderer_v2_pytorch_tpu as nr
-from neural_renderer_v2_pytorch_tpu.models.lights import (
+import neural_renderer_v2_jax as nr
+from neural_renderer_v2_jax.models.lights import (
     AmbientLight,
     DirectionalLight,
     SpecularLight,
 )
-from neural_renderer_v2_pytorch_tpu.ops.rasterize import (
+from neural_renderer_v2_jax.ops.rasterize import (
     RasterizeHyperparam,
     RasterizeParam,
     rasterize_rgb,
@@ -84,13 +84,13 @@ def test_background_color_blend():
     np.testing.assert_allclose(center, [1.0, 1.0, 1.0], atol=1e-6)
 
 
-def test_texel_fast_path_matches_gather_sampling(reference_data):
+def test_texel_fast_path_matches_gather_sampling(knot):
     """The latched-texel sampler (texture_size set) must reproduce the
     general atlas-gather sampler on create_textures-style atlases, for
     both values and texture gradients, at ts=2 and ts=4."""
     import jax
 
-    vertices, faces = nr.load_obj(str(reference_data / "teapot.obj"))
+    vertices, faces = knot
     renderer = nr.Renderer()
     renderer.viewpoints = nr.get_points_from_angles(2.732, 30, 45)
     tv = renderer.transform_vertices(jnp.asarray(vertices[None]))
@@ -140,16 +140,16 @@ def test_empty_lights_tuple_renders_black():
     np.testing.assert_array_equal(img_empty, np.zeros_like(img_empty))
 
 
-def test_light_base_class_and_subclassing(reference_data):
-    """VERDICT weak #7: ``Light`` is a real base class -- reference-style
+def test_light_base_class_and_subclassing():
+    """``Light`` is a real base class -- reference-style
     isinstance checks work, and a user SUBCLASS of a concrete light is
     applied like its parent (torch semantics)."""
     import jax.numpy as jnp
 
-    from neural_renderer_v2_pytorch_tpu.models.lights import (
+    from neural_renderer_v2_jax.models.lights import (
         AmbientLight, DirectionalLight, Light, SpecularLight,
     )
-    from neural_renderer_v2_pytorch_tpu.ops.shading import apply_lights_planar
+    from neural_renderer_v2_jax.ops.shading import apply_lights_planar
 
     amb = AmbientLight(color=jnp.ones((1, 3)) * 0.25)
     assert isinstance(amb, Light)

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from neural_renderer_v2_pytorch_tpu.utils import obj_io
-from neural_renderer_v2_pytorch_tpu.utils import native_loader
+from neural_renderer_v2_jax.utils import obj_io
+from neural_renderer_v2_jax.utils import native_loader
 
 
 @pytest.fixture
@@ -17,8 +17,11 @@ def force_python_loader():
     native_loader._lib = saved
 
 
-def test_native_matches_python(reference_data, force_python_loader):
-    p = str(reference_data / "teapot.obj")
+def test_native_matches_python(tmp_path, force_python_loader):
+    from neural_renderer_v2_jax.utils.scenes import torus_knot
+
+    p = str(tmp_path / "knot.obj")
+    obj_io.save_obj(p, *torus_knot(seed=1))
     v_py, f_py = obj_io.load_obj(p, normalization=False)
 
     native_loader._failed = False

@@ -3,7 +3,7 @@
 
 import numpy as np
 
-import neural_renderer_v2_pytorch_tpu as nr
+import neural_renderer_v2_jax as nr
 
 
 def test_load_obj_teapot(reference_data):

@@ -10,19 +10,19 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import neural_renderer_v2_pytorch_tpu as nr
-from neural_renderer_v2_pytorch_tpu.models.lights import (
+import neural_renderer_v2_jax as nr
+from neural_renderer_v2_jax.models.lights import (
     AmbientLight,
     DirectionalLight,
     SpecularLight,
 )
-from neural_renderer_v2_pytorch_tpu.ops.rasterize import (
+from neural_renderer_v2_jax.ops.rasterize import (
     RasterizeHyperparam,
     RasterizeParam,
     rasterize_rgb,
     rasterize_silhouettes,
 )
-from neural_renderer_v2_pytorch_tpu.parallel import (
+from neural_renderer_v2_jax.parallel import (
     make_mesh,
     rasterize_rgb_sharded,
     rasterize_silhouettes_sharded,
@@ -30,8 +30,16 @@ from neural_renderer_v2_pytorch_tpu.parallel import (
 
 
 @pytest.fixture(scope="module")
-def teapot(reference_data):
-    return nr.load_obj(str(reference_data / "teapot.obj"))
+def teapot(knot):
+    """The generated 2,464-face mesh (the reference teapot's size)."""
+    return knot
+
+
+def _hp(backend="xla", **kw):
+    """Hyperparams for a backend; the Triton kernel runs interpreted."""
+    return RasterizeHyperparam(
+        backend=backend, interpret=backend == "triton", **kw
+    )
 
 
 @pytest.fixture(scope="module")
@@ -43,14 +51,14 @@ def transformed_batch(teapot):
     return tv, jnp.asarray(f)
 
 
-@pytest.mark.parametrize("backend", ["xla", "pallas"])
+@pytest.mark.parametrize("backend", ["xla", "triton"])
 def test_sharded_silhouette_matches_single(transformed_batch, backend):
     """Tile sharding must be bit-exact vs the single-device XLA pipeline
-    with BOTH backends: the Pallas kernel (interpret mode on CPU) now runs
+    with BOTH backends: the Triton kernel (interpret mode on CPU) runs
     under the row-window shard_map path."""
     tv, f = transformed_batch
     mesh = make_mesh(data=2, tile=4)
-    hp = RasterizeHyperparam(image_size=128, anti_aliasing=False, backend=backend)
+    hp = _hp(backend, image_size=128, anti_aliasing=False)
     sharded = np.asarray(rasterize_silhouettes_sharded(tv, f, None, hp, mesh=mesh))
     single = np.asarray(
         rasterize_silhouettes(tv, f, None, hp.replace(backend="xla"))
@@ -58,11 +66,11 @@ def test_sharded_silhouette_matches_single(transformed_batch, backend):
     np.testing.assert_array_equal(sharded, single)
 
 
-@pytest.mark.parametrize("backend", ["xla", "pallas"])
+@pytest.mark.parametrize("backend", ["xla", "triton"])
 def test_sharded_gradients_match_single(transformed_batch, backend):
     tv, f = transformed_batch
     mesh = make_mesh(data=2, tile=4)
-    hp = RasterizeHyperparam(image_size=128, anti_aliasing=False, backend=backend)
+    hp = _hp(backend, image_size=128, anti_aliasing=False)
     hp_single = hp.replace(backend="xla")
     ref = jnp.asarray(np.random.RandomState(0).rand(2, 128, 128).astype("float32"))
 
@@ -79,7 +87,7 @@ def test_sharded_gradients_match_single(transformed_batch, backend):
     np.testing.assert_allclose(g_sh, g_si, atol=1e-4 * scale)
 
 
-@pytest.mark.parametrize("backend", ["xla", "pallas"])
+@pytest.mark.parametrize("backend", ["xla", "triton"])
 def test_sharded_textured_with_lights(transformed_batch, teapot, backend):
     tv, f = transformed_batch
     _, faces_np = teapot
@@ -100,7 +108,7 @@ def test_sharded_textured_with_lights(transformed_batch, teapot, backend):
         textures=jnp.asarray(np.tile(tex[None], (bs, 1, 1, 1))),
         lights=lights,
     )
-    hp = RasterizeHyperparam(image_size=64, anti_aliasing=True, backend=backend)
+    hp = _hp(backend, image_size=64, anti_aliasing=True)
     mesh = make_mesh(data=2, tile=4)
     sharded = np.asarray(rasterize_rgb_sharded(tv, f, params, hp, mesh=mesh))
     single = np.asarray(rasterize_rgb(tv, f, params, hp.replace(backend="xla")))
@@ -122,15 +130,15 @@ def test_sharded_textured_with_lights(transformed_batch, teapot, backend):
     np.testing.assert_allclose(g_sh, g_si, atol=1e-4 * scale)
 
 
-@pytest.mark.parametrize("backend", ["xla", "pallas"])
+@pytest.mark.parametrize("backend", ["xla", "triton"])
 def test_face_sharded_silhouette_matches_single(transformed_batch, backend):
     """(data=2, tile=2, face=2): the resolve's face loop distributed with
     the ordered z-combine must reproduce the single-device image (the
-    teapot has no cross-shard depth ties within the 1e-4 band); with
-    backend='pallas' each shard's local resolve runs the binned kernel."""
+    mesh has no cross-shard depth ties within the 1e-4 band); with
+    backend='triton' each shard's local resolve runs the kernel."""
     tv, f = transformed_batch
     mesh = make_mesh(data=2, tile=2, face=2)
-    hp = RasterizeHyperparam(image_size=128, anti_aliasing=False, backend=backend)
+    hp = _hp(backend, image_size=128, anti_aliasing=False)
     sharded = np.asarray(rasterize_silhouettes_sharded(tv, f, None, hp, mesh=mesh))
     single = np.asarray(
         rasterize_silhouettes(tv, f, None, hp.replace(backend="xla"))
@@ -178,7 +186,7 @@ def test_face_sharded_cross_shard_tie(transformed_batch):
     the full face-sharded resolve must agree with the single-device map."""
     import jax.numpy as jnp
 
-    from neural_renderer_v2_pytorch_tpu.ops.rasterize import RasterizeParam  # noqa: F401
+    from neural_renderer_v2_jax.ops.rasterize import RasterizeParam  # noqa: F401
 
     tri = np.array(
         [[[-0.5, -0.5, 1.0], [0.5, -0.5, 1.0], [0.0, 0.5, 1.0]]], "float32"
@@ -195,7 +203,7 @@ def test_face_sharded_cross_shard_tie(transformed_batch):
     single = rasterize_silhouettes(vertices, faces, None, hp)
     np.testing.assert_array_equal(np.asarray(sharded), np.asarray(single))
 
-    from neural_renderer_v2_pytorch_tpu.ops.resolve import compute_face_index_map
+    from neural_renderer_v2_jax.ops.resolve import compute_face_index_map
 
     fim = np.asarray(compute_face_index_map(jnp.asarray(fv), 32))
     assert set(np.unique(fim)) == {-1, 0}  # face 4 never displaces face 0
@@ -204,7 +212,7 @@ def test_face_sharded_cross_shard_tie(transformed_batch):
 def test_ordered_z_combine_tolerance_band():
     """The shard fold applies the reference's 1e-4 accept rule: a later
     shard's winner within the band does NOT displace the earlier one."""
-    from neural_renderer_v2_pytorch_tpu.parallel.faces import ordered_z_combine
+    from neural_renderer_v2_jax.parallel.faces import ordered_z_combine
 
     depths = jnp.asarray(
         [[1.0, 1.0], [1.0 - 5e-5, 0.5]], jnp.float32
@@ -247,7 +255,7 @@ def test_sharded_texel_fast_path_matches_single(transformed_batch, teapot):
 
 def test_auto_mesh_heuristic():
     """auto_mesh: tile-first, a data axis only from 8 devices up."""
-    from neural_renderer_v2_pytorch_tpu.parallel.mesh import auto_mesh
+    from neural_renderer_v2_jax.parallel.mesh import auto_mesh
 
     m8 = auto_mesh(8)
     assert dict(m8.shape) == {"data": 2, "tile": 4}
@@ -263,7 +271,7 @@ def test_auto_mesh_face_axis():
     """With the face count known, auto_mesh allocates the face axis (the
     dominant-cost divider at north-star face counts) down to the measured
     ~10K-faces-per-shard crossover, and not past it."""
-    from neural_renderer_v2_pytorch_tpu.parallel.mesh import auto_mesh
+    from neural_renderer_v2_jax.parallel.mesh import auto_mesh
 
     # 160K faces, 8 devices: data=2, remaining 4 all go to face
     # (160K / 4 = 40K faces/shard, still >= the 10K crossover)
@@ -282,9 +290,9 @@ def test_auto_mesh_face_axis():
 
 def test_resolve_and_gather_latch_z_paths():
     """latch_z=False (the silhouette path) must produce the same planes
-    on both backends -- XY planes latched, z planes exactly zero -- and
+    on both backends -- XY planes gathered, z planes exactly zero -- and
     route gradients only into vertex XY."""
-    from neural_renderer_v2_pytorch_tpu.ops.gather_resolve import (
+    from neural_renderer_v2_jax.ops.gather_resolve import (
         resolve_and_gather,
     )
 
@@ -294,13 +302,14 @@ def test_resolve_and_gather_latch_z_paths():
     FV = jnp.asarray(fv)
 
     outs = {}
-    for backend in ("xla", "pallas"):
+    for backend in ("xla", "triton"):
         fim, fvm, _ = resolve_and_gather(
-            FV, None, 0, 64, 0.1, 100.0, True, backend, None, False
+            FV, None, 0, 64, 0.1, 100.0, True, backend, None, False,
+            backend == "triton",
         )
         outs[backend] = (np.asarray(fim), np.asarray(fvm))
-    np.testing.assert_array_equal(outs["xla"][0], outs["pallas"][0])
-    np.testing.assert_array_equal(outs["xla"][1], outs["pallas"][1])
+    np.testing.assert_array_equal(outs["xla"][0], outs["triton"][0])
+    np.testing.assert_array_equal(outs["xla"][1], outs["triton"][1])
     assert np.all(outs["xla"][1][:, (2, 5, 8)] == 0)  # z planes zero
 
     # full-latch reference: XY planes identical
@@ -326,7 +335,7 @@ def test_resolve_and_gather_latch_z_paths():
     np.testing.assert_allclose(g6[..., :2], g9[..., :2], atol=1e-6)
 
 
-@pytest.mark.parametrize("backend", ["xla", "pallas"])
+@pytest.mark.parametrize("backend", ["xla", "triton"])
 def test_sharded_aa_uneven_tile_split(transformed_batch, teapot, backend):
     """AA render whose internal row count does NOT divide the tile axis
     (image_size=33 -> 66 rows over tile=4 -> 17 rows/shard, 2 pad rows):
@@ -342,7 +351,7 @@ def test_sharded_aa_uneven_tile_split(transformed_batch, teapot, backend):
         faces_textures=jnp.asarray(ft),
         textures=jnp.asarray(np.tile(tex[None], (bs, 1, 1, 1))),
     )
-    hp = RasterizeHyperparam(image_size=33, anti_aliasing=True, backend=backend)
+    hp = _hp(backend, image_size=33, anti_aliasing=True)
     mesh = make_mesh(data=2, tile=4)
     sharded = np.asarray(rasterize_rgb_sharded(tv, f, params, hp, mesh=mesh))
     single = np.asarray(rasterize_rgb(tv, f, params, hp.replace(backend="xla")))
@@ -376,10 +385,10 @@ def test_tile_only_mesh_batch1(teapot):
 
 
 # ---------------------------------------------------------------------------
-# Collective census: the comm model in docs/SCALING.md:29-70 projects 93-97%
-# scaling efficiency from a specific collective inventory.  These tests pin
-# that inventory in the COMPILED HLO of the sharded train step, so a GSPMD
-# regression inserting reshards/all-to-alls cannot pass silently.
+# Collective census: the comm model in docs/SCALING.md rests on a specific
+# collective inventory.  These tests pin that inventory in the COMPILED HLO
+# of the sharded train step, so a GSPMD regression inserting
+# reshards/all-to-alls cannot pass silently.
 
 
 _DTYPE_BYTES = {
@@ -423,13 +432,15 @@ def _collective_census(hlo_text):
 
 
 def _lower_textured_train_step(mesh, size=32):
-    from neural_renderer_v2_pytorch_tpu.parallel.render import (
+    from neural_renderer_v2_jax.parallel.render import (
         rasterize_core_sharded,
     )
-    from neural_renderer_v2_pytorch_tpu.utils.helpers import create_textures
+    from neural_renderer_v2_jax.utils.helpers import create_textures
+
+    from neural_renderer_v2_jax.utils.scenes import torus_knot
 
     rng = np.random.RandomState(40)
-    v, f = nr.load_obj("/root/reference/tests_torch/data/teapot.obj")
+    v, f = torus_knot(seed=0)
     renderer = nr.Renderer()
     renderer.viewpoints = nr.get_points_from_angles(2.732, 30, 15)
     tv = renderer.transform_vertices(jnp.asarray(np.tile(v[None], (2, 1, 1))))

@@ -1,10 +1,10 @@
 """Pipeline-level edge cases and cross-backend fuzz.
 
-The kernel-level fuzz (test_resolve_pallas) covers the resolve/scatter
-ops in isolation; these cases run the FULL pipeline (gather -> resolve ->
-maps -> NMR hook -> flip/AA) on degenerate scenes where integration bugs
+The kernel-level fuzz (test_resolve_triton) covers the resolve ops in
+isolation; these cases run the FULL pipeline (gather -> resolve -> maps
+-> NMR hook -> flip/AA) on degenerate scenes where integration bugs
 hide: empty images, everything clipped, single faces, and batches mixing
-empty and full slots -- asserting xla/pallas backend equality and
+empty and full slots -- asserting xla/triton backend equality and
 finite, sane gradients throughout.
 """
 
@@ -13,7 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from neural_renderer_v2_pytorch_tpu.ops.rasterize import (
+from neural_renderer_v2_jax.ops.rasterize import (
     RasterizeHyperparam,
     RasterizeParam,
     rasterize_rgba,
@@ -23,7 +23,8 @@ from neural_renderer_v2_pytorch_tpu.ops.rasterize import (
 
 def _hp(backend, **kw):
     return RasterizeHyperparam(
-        image_size=32, anti_aliasing=False, backend=backend, **kw
+        image_size=32, anti_aliasing=False, backend=backend,
+        interpret=backend == "triton", **kw
     )
 
 
@@ -36,7 +37,7 @@ def _grad_silhouette(tv, faces, backend):
     return jax.grad(loss)(tv)
 
 
-@pytest.mark.parametrize("backend", ["xla", "pallas"])
+@pytest.mark.parametrize("backend", ["xla", "triton"])
 def test_empty_scene(backend):
     """No face covers any pixel: black image, zero gradients, no NaNs."""
     tv = jnp.asarray(
@@ -49,7 +50,7 @@ def test_empty_scene(backend):
     np.testing.assert_array_equal(np.asarray(g), 0.0)
 
 
-@pytest.mark.parametrize("backend", ["xla", "pallas"])
+@pytest.mark.parametrize("backend", ["xla", "triton"])
 def test_all_faces_clipped_by_near_plane(backend):
     """Faces entirely in front of the near plane (z < near) are clipped:
     empty image, zero gradients (reference kernel.cu near/far clip)."""
@@ -63,7 +64,7 @@ def test_all_faces_clipped_by_near_plane(backend):
     assert np.isfinite(np.asarray(g)).all()
 
 
-@pytest.mark.parametrize("backend", ["xla", "pallas"])
+@pytest.mark.parametrize("backend", ["xla", "triton"])
 def test_single_face_and_mixed_batch(backend):
     """One visible triangle; a batch mixing an empty slot with a full one
     must keep the slots independent (and match the other backend)."""
@@ -80,11 +81,11 @@ def test_single_face_and_mixed_batch(backend):
     assert np.abs(g[1]).max() > 0 and np.abs(g[0]).max() == 0
 
 
-def test_fuzz_full_pipeline_backend_equality(reference_data):
+def test_fuzz_full_pipeline_backend_equality():
     """Random soups (duplicates, degenerates, straddlers) through the
     FULL silhouette and textured pipelines: the two backends must agree
     bit-exactly on images and to 1e-4 rel on gradients."""
-    import neural_renderer_v2_pytorch_tpu as nr
+    import neural_renderer_v2_jax as nr
 
     rng = np.random.RandomState(77)
     for trial in range(3):
@@ -100,15 +101,15 @@ def test_fuzz_full_pipeline_backend_equality(reference_data):
 
         imgs = {}
         grads = {}
-        for backend in ("xla", "pallas"):
+        for backend in ("xla", "triton"):
             imgs[backend] = np.asarray(
                 rasterize_silhouettes(tv, faces, None, _hp(backend))
             )
             grads[backend] = np.asarray(_grad_silhouette(tv, faces, backend))
-        np.testing.assert_array_equal(imgs["xla"], imgs["pallas"])
+        np.testing.assert_array_equal(imgs["xla"], imgs["triton"])
         scale = max(np.abs(grads["xla"]).max(), 1e-6)
         np.testing.assert_allclose(
-            grads["pallas"], grads["xla"], atol=1e-4 * scale
+            grads["triton"], grads["xla"], atol=1e-4 * scale
         )
 
         # textured RGBA with a tiled atlas through both backends
@@ -121,6 +122,6 @@ def test_fuzz_full_pipeline_backend_equality(reference_data):
         )
         rgba = {
             b: np.asarray(rasterize_rgba(tv, faces, params, _hp(b)))
-            for b in ("xla", "pallas")
+            for b in ("xla", "triton")
         }
-        np.testing.assert_allclose(rgba["xla"], rgba["pallas"], atol=1e-5)
+        np.testing.assert_allclose(rgba["xla"], rgba["triton"], atol=1e-5)

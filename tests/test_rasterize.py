@@ -25,8 +25,8 @@ import numpy as np
 import optax
 import pytest
 
-import neural_renderer_v2_pytorch_tpu as nr
-from neural_renderer_v2_pytorch_tpu.ops.rasterize import (
+import neural_renderer_v2_jax as nr
+from neural_renderer_v2_jax.ops.rasterize import (
     RasterizeHyperparam,
     rasterize_silhouettes,
 )
@@ -51,11 +51,11 @@ def test_silhouette_vs_blender_golden(reference_data):
     assert (diff > 0.5).mean() < 2e-3  # only boundary pixels may differ
 
 
-def test_batch_independence(reference_data):
+def test_batch_independence(knot):
     """Rendering a batch where only slot 2 holds the mesh must equal the
     single-mesh render in slot 2 and empty images elsewhere
     (the reference's target_num pattern, tests_torch/test_rasterize.py:18-41)."""
-    vertices, faces = nr.load_obj(str(reference_data / "teapot.obj"))
+    vertices, faces = knot
     vertices_batch = np.tile(vertices[None], (4, 1, 1)) * 0
     vertices_batch[2] = vertices
 
@@ -92,9 +92,9 @@ def test_textured_render_vs_golden(reference_data):
     assert (d.max(-1) > 1e-2).mean() < 1e-3  # < 0.1% of pixels off
 
 
-def test_depth_render_finite_and_ordered(reference_data):
+def test_depth_render_finite_and_ordered(knot):
     """Depth map sanity: foreground depths within [near, far], background 0."""
-    vertices, faces = nr.load_obj(str(reference_data / "teapot.obj"))
+    vertices, faces = knot
     renderer = nr.Renderer()
     renderer.anti_aliasing = False
     renderer.viewpoints = nr.get_points_from_angles(2, 30.0, 0)
@@ -104,7 +104,7 @@ def test_depth_render_finite_and_ordered(reference_data):
     assert fg.any()
     assert depth[fg].min() > 0.1
     assert depth[fg].max() < 100.0
-    # teapot at distance 2: depths around 1..3
+    # a unit-box mesh at distance 2: depths around 1..3
     assert 1.0 < depth[fg].mean() < 3.0
 
 
@@ -204,14 +204,14 @@ def test_silhouette_fit_convergence(reference_data):
     assert losses[-1] < 0.01, "did not converge: last losses %s" % losses[-5:]
 
 
-def test_weight_map_properties(reference_data):
+def test_weight_map_properties(knot):
     """Foreground weights sum to 1 and lie in [0,1]; background weights 0."""
-    from neural_renderer_v2_pytorch_tpu.ops.resolve import (
+    from neural_renderer_v2_jax.ops.resolve import (
         compute_face_index_map,
         compute_weight_map,
     )
 
-    vertices, faces = nr.load_obj(str(reference_data / "teapot.obj"))
+    vertices, faces = knot
     renderer = nr.Renderer()
     renderer.viewpoints = nr.get_points_from_angles(2.732, 30, 0)
     tv = renderer.transform_vertices(jnp.asarray(vertices[None]))
@@ -229,7 +229,7 @@ def test_weight_map_properties(reference_data):
 
 
 def test_to_map_and_mask_foreground():
-    from neural_renderer_v2_pytorch_tpu.ops.maps import mask_foreground, to_map
+    from neural_renderer_v2_jax.ops.maps import mask_foreground, to_map
 
     rng = np.random.RandomState(0)
     data = jnp.asarray(rng.randn(2, 5, 3).astype("float32"))
@@ -255,8 +255,8 @@ def test_to_map_and_mask_foreground():
     assert np.all(masked[np.asarray(idx) < 0] == 0)
 
 
-def test_render_channel_shapes(reference_data):
-    vertices, faces = nr.load_obj(str(reference_data / "teapot.obj"))
+def test_render_channel_shapes(knot):
+    vertices, faces = knot
     vt, ft, tex = nr.create_textures(faces.shape[0], texture_size=2)
     renderer = nr.Renderer()
     renderer.image_size = 64
@@ -272,11 +272,11 @@ def test_render_channel_shapes(reference_data):
     assert depth.shape == (1, 64, 64)
 
 
-def test_rasterize_all_matches_individual_channels(reference_data):
+def test_rasterize_all_matches_individual_channels(knot):
     """rasterize_all (chainer rasterize_all parity, rasterize.py:614-766)
     draws RGB + silhouette + depth in one pass; each channel must match
     the dedicated entry point."""
-    from neural_renderer_v2_pytorch_tpu.ops.rasterize import (
+    from neural_renderer_v2_jax.ops.rasterize import (
         rasterize_all,
         rasterize_depth,
         rasterize_rgb,
@@ -284,7 +284,7 @@ def test_rasterize_all_matches_individual_channels(reference_data):
         RasterizeParam,
     )
 
-    vertices, faces = nr.load_obj(str(reference_data / "teapot.obj"))
+    vertices, faces = knot
     vt, ft, tex = nr.create_textures(faces.shape[0], texture_size=2)
     renderer = nr.Renderer()
     renderer.viewpoints = nr.get_points_from_angles(2.732, 30, 45)
@@ -326,23 +326,23 @@ def test_custom_adam_param_wise_lr():
     np.testing.assert_allclose(np.asarray(new["b"]), 1.0 - 0.1, atol=1e-3)
 
 
-def test_batch_chunked_render_bit_exact(reference_data):
+def test_batch_chunked_render_bit_exact(knot):
     """batch_chunk (the large-bs lax.map split) is bit-identical to the
     monolithic render -- values AND vertex gradients -- at a bs that is
     not a multiple of the chunk, for silhouettes and textured+lit RGBA
     with a background color."""
-    from neural_renderer_v2_pytorch_tpu.models.lights import (
+    from neural_renderer_v2_jax.models.lights import (
         AmbientLight,
         DirectionalLight,
     )
-    from neural_renderer_v2_pytorch_tpu.ops.camera import look_at, perspective
-    from neural_renderer_v2_pytorch_tpu.ops.rasterize import (
+    from neural_renderer_v2_jax.ops.camera import look_at, perspective
+    from neural_renderer_v2_jax.ops.rasterize import (
         RasterizeParam,
         rasterize_rgba,
     )
-    from neural_renderer_v2_pytorch_tpu.utils.helpers import create_textures
+    from neural_renderer_v2_jax.utils.helpers import create_textures
 
-    vertices, faces = nr.load_obj(str(reference_data / "teapot.obj"))
+    vertices, faces = knot
     bs = 10
     eyes = np.stack(
         [
@@ -397,47 +397,39 @@ def test_batch_chunked_render_bit_exact(reference_data):
     np.testing.assert_array_equal(np.asarray(ga), np.asarray(gb))
 
 
-def test_odd_image_size_renders(reference_data, monkeypatch):
-    """Non-8-aligned / non-128-wide sizes run the PALLAS kernel (padded
-    canvas + crop inside the op -- no silent XLA fallback) and match the
-    XLA resolve bit-exactly."""
-    from neural_renderer_v2_pytorch_tpu.ops import gather_resolve, resolve_pallas
-    from neural_renderer_v2_pytorch_tpu.ops.rasterize import (
-        RasterizeHyperparam,
-        rasterize_silhouettes,
-    )
+def test_odd_image_size_renders(knot, monkeypatch):
+    """Sizes that are not a multiple of the kernel's tile run the Triton
+    resolve (padded canvas + crop inside the op -- no silent XLA
+    fallback) and match the XLA pipeline bit-exactly, values and
+    gradients."""
+    from neural_renderer_v2_jax.ops import gather_resolve
 
-    vertices, faces = nr.load_obj(str(reference_data / "teapot.obj"))
+    vertices, faces = knot
     renderer = nr.Renderer()
-    renderer.image_size = 50  # render_size 100 with AA: 100 % 8 != 0
     renderer.viewpoints = nr.get_points_from_angles(2.732, 30, 45)
-    renderer.backend = "pallas"
+    tv = renderer.transform_vertices(jnp.asarray(vertices[None]))
 
     calls = []
-    real = resolve_pallas.resolve_gather_pallas
+    real = gather_resolve.compute_face_index_map_triton
 
     def spy(*args, **kw):
         calls.append(kw.get("num_rows"))
         return real(*args, **kw)
 
-    monkeypatch.setattr(resolve_pallas, "resolve_gather_pallas", spy)
-    sil = np.asarray(renderer.render_silhouettes(vertices[None], faces))
+    monkeypatch.setattr(gather_resolve, "compute_face_index_map_triton", spy)
+    hp = RasterizeHyperparam(image_size=50, interpret=True)  # 100 rows with AA
+    sil = np.asarray(
+        rasterize_silhouettes(tv, faces, None, hp.replace(backend="triton"))
+    )
     assert sil.shape == (1, 50, 50)
     assert 0.05 < sil.mean() < 0.3
-    assert calls, "pallas backend was not used for the odd size"
-
-    # bit-exact vs the XLA resolve at an odd, non-128 width, no AA
-    tv = renderer.transform_vertices(jnp.asarray(vertices[None]))
-    hp = RasterizeHyperparam(image_size=75, anti_aliasing=False)
-    pal = np.asarray(
-        rasterize_silhouettes(tv, faces, None, hp.replace(backend="pallas"))
+    assert calls, "the Triton backend was not used for the odd size"
+    np.testing.assert_array_equal(
+        sil, np.asarray(rasterize_silhouettes(tv, faces, None, hp.replace(backend="xla")))
     )
-    xla = np.asarray(
-        rasterize_silhouettes(tv, faces, None, hp.replace(backend="xla"))
-    )
-    np.testing.assert_array_equal(pal, xla)
 
-    # and the gradients agree through the padded canvas too
+    # bit-exact vs the XLA resolve at an odd width, no AA, gradients too
+    hp = RasterizeHyperparam(image_size=75, anti_aliasing=False, interpret=True)
     ref = np.random.RandomState(3).rand(1, 75, 75).astype("float32")
 
     def loss(tv, backend):
@@ -446,13 +438,12 @@ def test_odd_image_size_renders(reference_data, monkeypatch):
             * ref
         )
 
-    g_pal = np.asarray(jax.grad(lambda v: loss(v, "pallas"))(tv))
+    g_tri = np.asarray(jax.grad(lambda v: loss(v, "triton"))(tv))
     g_xla = np.asarray(jax.grad(lambda v: loss(v, "xla"))(tv))
-    scale = max(np.abs(g_xla).max(), 1e-9)
-    np.testing.assert_allclose(g_pal, g_xla, atol=1e-4 * scale)
+    np.testing.assert_array_equal(g_tri, g_xla)
 
 
-def test_renderer_look_mode_and_background_image(reference_data):
+def test_renderer_look_mode_and_background_image(knot):
     """Facade coverage for the remaining Renderer attributes: 
     camera_mode='look' (fixed gaze direction) must match the manual
     look() pipeline, and a full background IMAGE (not just a color) must
@@ -460,12 +451,12 @@ def test_renderer_look_mode_and_background_image(reference_data):
     pre-flip, chainer rasterize.py:574-577)."""
     import jax.numpy as jnp
 
-    from neural_renderer_v2_pytorch_tpu.ops.camera import look, perspective as persp
-    from neural_renderer_v2_pytorch_tpu.ops.rasterize import (
+    from neural_renderer_v2_jax.ops.camera import look, perspective as persp
+    from neural_renderer_v2_jax.ops.rasterize import (
         rasterize_silhouettes as rs,
     )
 
-    vertices, faces = nr.load_obj(str(reference_data / "teapot.obj"))
+    vertices, faces = knot
     renderer = nr.Renderer()
     renderer.image_size = 64
     renderer.anti_aliasing = False
@@ -505,12 +496,11 @@ def test_renderer_look_mode_and_background_image(reference_data):
 
 
 def test_pick_batch_chunk_geometry():
-    """The sub-batch chooser (measured tuning, TPU_BATTERY_r05.log #6):
-    exact divisors >= 3/4 of the requested chunk beat padded splits;
-    primes fall back to balanced padding."""
-    from neural_renderer_v2_pytorch_tpu.ops.rasterize import _pick_batch_chunk
+    """The sub-batch chooser: exact divisors >= 3/4 of the requested
+    chunk beat padded splits; primes fall back to balanced padding."""
+    from neural_renderer_v2_jax.ops.rasterize import _pick_batch_chunk
 
-    assert _pick_batch_chunk(30, 8) == (6, 5, 0)    # the measured win
+    assert _pick_batch_chunk(30, 8) == (6, 5, 0)
     assert _pick_batch_chunk(16, 8) == (8, 2, 0)
     assert _pick_batch_chunk(12, 8) == (6, 2, 0)
     assert _pick_batch_chunk(10, 6) == (5, 2, 0)
